@@ -13,7 +13,7 @@ space (radius 0.1 is not projection-compressed while the 0.9 eye gap
 is), so they engulf the view — rendered faithfully with --with-spheres.
 
 Usage: python examples/bunny_whitted.py [--width 256] [--height 256]
-       [--out /tmp/bunny.png] [--cpu] [--with-spheres]
+       [--out bunny.png] [--cpu] [--with-spheres]
 """
 
 import argparse
@@ -74,7 +74,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=256)
-    ap.add_argument("--out", default="/tmp/bunny.png")
+    ap.add_argument("--out", default="bunny.png")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--with-spheres", action="store_true")
     args = ap.parse_args()

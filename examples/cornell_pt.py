@@ -2,7 +2,7 @@
 (README.md:478-560: PathTracing render, Cornell parts, 16-2048 spp).
 
 Usage: python examples/cornell_pt.py [--width 256] [--height 256]
-       [--spp 16] [--out /tmp/cornell.png] [--cpu] [--ckpt PATH]
+       [--spp 16] [--out cornell.png] [--cpu] [--ckpt PATH]
        [--batch N]   (renders progressively in N-sample batches)
        [--config cfg.json]  (RenderConfig JSON; CLI flags override)
        [--tiles N]   (render via N restartable tile jobs with retries)
@@ -22,7 +22,7 @@ def main():
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--batch", type=int, default=0,
                     help="progressive batch size (0 = single shot)")
-    ap.add_argument("--out", default="/tmp/cornell.png")
+    ap.add_argument("--out", default="cornell.png")
     ap.add_argument("--ckpt", default="", help="checkpoint path for resume")
     ap.add_argument("--config", default="", help="RenderConfig JSON file")
     ap.add_argument("--tiles", type=int, default=0,

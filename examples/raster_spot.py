@@ -2,7 +2,7 @@
 texture shaders, two point lights), rendered to PNG.
 
 Usage: python examples/raster_spot.py [--width 512] [--height 512]
-       [--out /tmp/raster_spot.png] [--degree 140] [--frames 1] [--cpu]
+       [--out raster_spot.png] [--degree 140] [--frames 1] [--cpu]
 """
 
 import argparse
@@ -16,7 +16,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--height", type=int, default=512)
-    ap.add_argument("--out", default="/tmp/raster_spot.png")
+    ap.add_argument("--out", default="raster_spot.png")
     ap.add_argument("--degree", type=float, default=140.0)
     ap.add_argument("--frames", type=int, default=1)
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")

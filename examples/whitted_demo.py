@@ -3,7 +3,7 @@
 (main.cpp:12-177).
 
 Usage: python examples/whitted_demo.py [--width 256] [--height 256]
-       [--spp 1] [--out /tmp/whitted.png] [--cpu] [--frames 1]
+       [--spp 1] [--out whitted.png] [--cpu] [--frames 1]
 """
 
 import argparse
@@ -84,7 +84,7 @@ def main():
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--frames", type=int, default=1)
-    ap.add_argument("--out", default="/tmp/whitted.png")
+    ap.add_argument("--out", default="whitted.png")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 

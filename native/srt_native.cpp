@@ -1,6 +1,6 @@
 // Native host-side runtime pieces for software_rasterizer_tpu.
 //
-// The reference implements its entire host runtime in C++17; the TPU
+// The reference implements its entire host runtime in C++17; this
 // build keeps the compute path in XLA but implements the load-time /
 // host-side hot spots natively too:
 //

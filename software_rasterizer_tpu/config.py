@@ -39,7 +39,7 @@ class RenderConfig:
     # Device-mesh axes: framebuffer tiles ("tile") x sample shards ("spp").
     tile_shards: int = 1
     spp_shards: int = 1
-    # Pallas raster tile size (rows, cols) — fp32-aligned (8,128) multiples.
+    # Raster coverage tile size (rows, cols) of ops/raster.rasterize_tiles.
     raster_tile: Tuple[int, int] = (128, 128)
     # Use brute-force intersection below this triangle count, BVH above.
     bvh_threshold: int = 8192

@@ -8,8 +8,8 @@ surface area for area-weighted light sampling (:200-232); traversal
 prunes by slab AABB test and takes the nearer of both children
 (:103-140).
 
-TPU-first redesign — divergent pointer-chasing traversal is the wrong
-shape for a vector machine, so the BVH serves two roles here:
+Redesign — divergent pointer-chasing traversal is the wrong shape for
+whole-array programs, so the BVH serves two roles here:
 
   1. `build_bvh` (host, NumPy): the reference's exact build, flattened
      to arrays. `leaf_order` extracts the DFS primitive order — spatially
@@ -34,6 +34,9 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+
+# float32 dots on the GPU may otherwise run in TF32
+_HI = jax.lax.Precision.HIGHEST
 
 
 class FlatBVH(NamedTuple):
@@ -300,13 +303,13 @@ def bvh_nearest_hit(bvh_dev, v0, v1, v2, orig, d, max_depth: int = 64):
             e1 = v1[p] - v0[p]
             e2 = v2[p] - v0[p]
             pv = jnp.cross(dd, e2)
-            det = jnp.dot(e1, pv)
+            det = jnp.dot(e1, pv, precision=_HI)
             invd = 1.0 / jnp.where(jnp.abs(det) < 1e-6, 1.0, det)
             tv = o - v0[p]
-            uu = jnp.dot(tv, pv) * invd
+            uu = jnp.dot(tv, pv, precision=_HI) * invd
             qv = jnp.cross(tv, e1)
-            vv = jnp.dot(dd, qv) * invd
-            tt = jnp.dot(e2, qv) * invd
+            vv = jnp.dot(dd, qv, precision=_HI) * invd
+            tt = jnp.dot(e2, qv, precision=_HI) * invd
             ok = (
                 (jnp.abs(det) >= 1e-6)
                 & (uu >= 0.0) & (uu <= 1.0)

@@ -1,12 +1,13 @@
 """Ray-scene intersection (reference: Triangle.cpp:104-145 Moller-Trumbore,
 Sphere.cpp:106-146 analytic quadratic, Scene.cpp:349-396 nearest-hit).
 
-TPU-first design: the reference's per-mesh BVH + TBB parallel_reduce over
-objects becomes a masked min-reduction over ALL primitives, streamed in
-chunks under `lax.scan` (VPU-vectorized, no divergent traversal). For the
-reference's scene sizes (<= 6K triangles) this brute-force sweep is at or
-above BVH speed on TPU (SURVEY.md 7.1); ops/bvh.py provides the scaling
-path for larger scenes.
+The reference's per-mesh BVH + TBB parallel_reduce over objects becomes
+a masked min-reduction over ALL primitives, streamed in chunks (no
+divergent traversal). Triangles arrive in BVH-leaf order, so a chunk's
+AABB is tight and a whole (ray block x chunk) tile is skipped when no
+ray of the block enters it. Two implementations of that sweep exist:
+the plain-XLA `_intersect_tri_raw` and the Pallas kernel of
+ops/trace_kernel.py; `_trace_backend` picks one by triangle count.
 
 The scene arrives as an `RTScene` — transformed, SoA, device-resident —
 built per frame by `prepare_rt_scene` (the analog of Scene::updatePosition,
@@ -21,87 +22,33 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from software_rasterizer_tpu.ops.pallas_trace import (
-    chunk_bounds,
-    mt_tri_coef,
-    mt_tri_table,
-    trace_nearest_mm,
-    trace_nearest_mm2,
-    trace_nearest_mm2_stream,
-    trace_nearest_mm2c,
-    trace_nearest_vpu,
-)
-
 from software_rasterizer_tpu.ops.raster import hom_transform
 from software_rasterizer_tpu.ops.texture_ops import fetch_nearest
+from software_rasterizer_tpu.ops.trace_kernel import (
+    TRACE_CHUNK,
+    chunk_bounds,
+    edge_rows,
+    trace_nearest,
+)
 
 BIG = jnp.float32(1e30)
 
-# Trace-backend tiers by triangle count (measured on v5e, PERFORMANCE.md):
-#   <= VPU_TRACE_MAX_TRIS: fused VPU kernel — scalar-broadcast triangle
-#       loop, exact f32, zero MXU-pass overhead; wins for small scenes
-#       (its loop runs exactly n_tri iterations, no pad waste).
-#   <= MM_TRACE_MAX_TRIS: chunk-culled MXU matmul kernel (mm2) —
-#       per-ray-block slab culling over BVH-ordered 128-tri chunks,
-#       whole coefficient table VMEM-resident, HIGHEST precision
-#       matmuls (Mosaic rejects 3-pass bf16 HIGH).
-#   <= MM2S_TRACE_MAX_TRIS: the HBM-STREAMING variant (mm2s) — same
-#       math, coefficient chunks double-buffer-DMAed from HBM per
-#       listed chunk, so the VMEM residency cap disappears; bounded
-#       only by the cull-mask capacity (mask_rows*128 chunks).
-#   above: the blocked XLA chunk-cull sweep (exact, unbounded).
-#   SRT_MM_TRACE=1 forces the UNCULLED mm kernel (benchmarks/tests);
-#   SRT_MM_TRACE=mm2s forces the streaming kernel.
-VPU_TRACE_MAX_TRIS = 1024
-MM_TRACE_MAX_TRIS = 16384
-MM2_CHUNK = 128    # culling granule of the VMEM-resident mm2 kernel
-MM2_BLOCK = 2048   # rays per mm2 kernel program. STANDALONE, 8192 beat
-                   # 2048 by 2.6x at 1M demo rays (1.66 vs 4.38 ms,
-                   # tools/trace_block_ab.py) — but IN-FRAME the whitted
-                   # render got ~12 ms SLOWER at 8192 (depth-0 main
-                   # trace 8.2 -> 16.0 ms, shadow trace 5.3 -> 10.6;
-                   # profile_whitted, reproducible). Standalone slopes
-                   # bound in-frame behavior only loosely on this
-                   # platform; 2048 is the measured in-frame optimum.
-MM2S_CHUNK = 256   # coarser granule for the HBM-streaming tier: fewer,
-                   # larger DMAs/matmuls win above ~100K tris (measured
-                   # 318K-tri sweep: 256 beat 128 by 12%, 512-ray DMA
-                   # ~52KB hides fully behind the (1024, 2048) matmul)
-# mm2s ceiling: 8192 chunks at the MM2S_CHUNK granule (the kernel itself
-# streams coefficients from HBM, so the binding costs are the O(nc)
-# per-block cull-prepass loop and the (6, nc) SMEM AABB window — both
-# measured fine at nc ~ 5K / 2M tris, BENCH_MODE=stress LEVELS=4).
-# Above it the blocked XLA chunk-cull sweep remains (exact, unbounded).
-MM2S_TRACE_MAX_TRIS = 8192 * MM2S_CHUNK
-
-
-def _cull_granule(f_pad: int) -> int:
-    """Chunk granule for prepare_rt_scene's cull AABBs: matches what
-    `_trace_tris` will dispatch for this scene size."""
-    return MM2_CHUNK if f_pad <= MM_TRACE_MAX_TRIS else MM2S_CHUNK
+# Padded triangle count from which a GPU trace runs the Pallas kernel
+# instead of the XLA chunk sweep. Measured end to end on an H100
+# (tools/trace_crossover.py, PERF.md): at 36 triangles (one sweep chunk)
+# the kernel is 9% slower on path and 25% faster on whitted; from 5,120
+# triangles up it wins both, by 1.3-1.7x on path and by 27x on whitted
+# at 327,680. The threshold sits above one 512-triangle sweep chunk.
+KERNEL_MIN_TRIS = 1024
 
 
 def _trace_backend(f_pad: int) -> str:
-    import os
-
-    flag = os.environ.get("SRT_MM_TRACE", "auto")
-    if flag == "0":
-        return "xla"
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if flag == "vpu":
-        return "vpu"
-    if flag == "1":
-        return "mm"
-    if flag == "mm2s":
-        return "mm2s"
-    if not on_tpu or f_pad > MM2S_TRACE_MAX_TRIS:
-        return "xla"
-    if f_pad <= VPU_TRACE_MAX_TRIS:
-        return "vpu"
-    return "mm2" if f_pad <= MM_TRACE_MAX_TRIS else "mm2s"
+    """"kernel" (ops/trace_kernel.trace_nearest) or "xla"
+    (`_intersect_tri_raw`), by the static padded triangle count. Only a
+    GPU runs the kernel; the CPU, used for tests, always sweeps in XLA."""
+    if jax.default_backend() == "gpu" and f_pad >= KERNEL_MIN_TRIS:
+        return "kernel"
+    return "xla"
 
 
 class RTScene(NamedTuple):
@@ -139,7 +86,7 @@ class RTScene(NamedTuple):
     emitter_order: jnp.ndarray   # (O,) i32 object ids, emissive first
     n_emitters: jnp.ndarray      # () i32
     emitter_cr: jnp.ndarray      # (O,4) [center, radius] rows in emitter
-                                 # order — one-hot matmul operand for the
+                                 # order — one-hot join operand for the
                                  # per-lane emitter pick
     prim_attr: jnp.ndarray       # (P_pad, 40) per-primitive attribute rows
                                  # (tris then spheres; see _pack_prim_attr)
@@ -147,25 +94,16 @@ class RTScene(NamedTuple):
                                  # minimal epilogue table for emit-only
                                  # shadow traces (nearest_emit_hit)
     prim_cls: jnp.ndarray        # (P_pad, 8) [mat_type, ior, 0...] rows —
-                                 # classify_hit's winner-class join (an
-                                 # 8-col row gather runs at ~1.7 ns/row
-                                 # on v5e where a 1-col gather pays
-                                 # ~7 ns/row; tools/gather_cost.py)
-    mt_coef: jnp.ndarray         # (4F, 13) bilinear Moller-Trumbore
-                                 # coefficients (ops/pallas_trace.mt_tri_coef)
-                                 # for the MXU trace kernel
-    tri_table: jnp.ndarray       # (F, 12) [v0|e1|e2|pad] rows for the
-                                 # fused VPU trace kernel
-    n_tri: jnp.ndarray           # () i32 1 + last valid triangle index
-    chunk_lo: jnp.ndarray        # (nc,3) per-chunk AABBs (MM2_CHUNK tris,
-    chunk_hi: jnp.ndarray        # BVH-leaf order) for the mm2 cull
+                                 # classify_hit's winner-class join (one
+                                 # row gather instead of one per column)
+    tri_edges: jnp.ndarray       # (F, 9) [v0|e1|e2] rows for the trace
+                                 # kernel (ops/trace_kernel.edge_rows)
+    chunk_lo: jnp.ndarray        # (nc,3) per-chunk AABBs (TRACE_CHUNK tris,
+    chunk_hi: jnp.ndarray        # BVH-leaf order) for the kernel's cull
     textures: jnp.ndarray
     tex_wh: jnp.ndarray
     background: jnp.ndarray      # (3,)
     eye: jnp.ndarray             # (3,)
-    # shape-encoded "an emissive triangle is textured" flag ((1,)/(0,));
-    # see models.scene.RTGeometry.tex_on_emitter
-    tex_on_emitter: jnp.ndarray = jnp.zeros(0, bool)
     # (K,Hm,Wm) i32 packed atlas (texture_ops.pack_atlas); (1,1,1) zeros
     # when the geometry predates the field — fetch falls back to the u8
     # row gather in that case (see nearest_hit)
@@ -181,7 +119,9 @@ def prepare_rt_scene(geom, frame) -> RTScene:
     m = frame.mvp[geom.vertex_mesh]
     pos = hom_transform(m, geom.positions)
     nm = frame.normal_mat3[geom.vertex_mesh]
-    nrm = jnp.einsum("vij,vj->vi", nm, geom.normals)
+    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU
+    nrm = jnp.einsum("vij,vj->vi", nm, geom.normals,
+                     precision=jax.lax.Precision.HIGHEST)
     nrm = nrm / jnp.maximum(jnp.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
 
     tv = pos[geom.faces]   # (F,3,3)
@@ -210,10 +150,8 @@ def prepare_rt_scene(geom, frame) -> RTScene:
 
     centers, radii = jax.vmap(obj_bounds)(obj_ids)
 
-    _tt, _nt = mt_tri_table(tv[:, 0], tv[:, 1], tv[:, 2], geom.face_valid)
     _clo, _chi = chunk_bounds(
-        tv[:, 0], tv[:, 1], tv[:, 2], geom.face_valid,
-        _cull_granule(tv.shape[0]),
+        tv[:, 0], tv[:, 1], tv[:, 2], geom.face_valid, TRACE_CHUNK
     )
     mt = geom.materials
     emitter_order = jnp.argsort(
@@ -236,8 +174,7 @@ def prepare_rt_scene(geom, frame) -> RTScene:
         pass  # traced geometry: keep the full (padded) table
 
     # packed per-primitive attribute table (tris then spheres) — one
-    # one-hot matmul on the MXU replaces ~12 per-winner gathers, which
-    # profiling showed dominating every bounce at small scene sizes
+    # one-hot join (or one row gather) replaces ~12 per-winner gathers
     f = tv.shape[0]
     tri_kd = mt.kd[geom.tri_mat]
     tri_emit = mt.emission[geom.tri_mat]
@@ -310,11 +247,10 @@ def prepare_rt_scene(geom, frame) -> RTScene:
         prim_attr=prim_attr,
         prim_shadow=prim_shadow,
         prim_cls=prim_cls,
-        mt_coef=mt_tri_coef(tv[:, 0], tv[:, 1], tv[:, 2], geom.face_valid),
-        tri_table=_tt, n_tri=_nt, chunk_lo=_clo, chunk_hi=_chi,
+        tri_edges=edge_rows(tv[:, 0], tv[:, 1], tv[:, 2], geom.face_valid),
+        chunk_lo=_clo, chunk_hi=_chi,
         textures=geom.textures, tex_wh=geom.tex_wh,
         background=frame.background, eye=frame.eye,
-        tex_on_emitter=jnp.asarray(geom.tex_on_emitter),
         tex_packed=jnp.asarray(
             getattr(geom, "tex_packed", np.zeros((1, 1, 1), np.int32))
         ),
@@ -341,10 +277,8 @@ class Hit(NamedTuple):
     kd: jnp.ndarray         # (N,3) material Kd of the winner
     mat_type: jnp.ndarray   # (N,) i32 MaterialType of the winner
     ior: jnp.ndarray        # (N,) f32
-    # texture identity of the winner, for DEFERRED color fetches
-    # (nearest_hit(defer_color=True) skips the atlas gather and returns
-    # color=Kd; callers re-fetch at a compacted width via ops/whitted.
-    # _fetch_color). -1 for spheres/untextured; tuv zeroed when `lite`.
+    # texture identity of the winner and its interpolated uv. -1 for
+    # spheres/untextured; tuv zeroed when `lite`.
     # No defaults on purpose: a constructor omitting them would produce
     # (0,)-shaped leaves that fail far from the construction site.
     tex: jnp.ndarray    # (N,) i32
@@ -359,9 +293,9 @@ def _mt_chunk(orig, d, v0, v1, v2, valid):
     the whole chunk chain fuses into one masked min-reduction with no
     (N,C) materialization.
 
-    Component-SoA form: every intermediate is a well-tiled (N,C) plane.
-    (A vector-minor layout like (N,C,3) leaves 125 of 128 VPU lanes idle
-    per op — the 3-vectors are unrolled into scalar planes instead.)
+    Component-SoA form: every intermediate is an (N,C) plane; the
+    3-vectors are unrolled into scalar planes rather than kept as a
+    minor axis of size 3.
     """
     ox, oy, oz = orig[:, 0:1], orig[:, 1:2], orig[:, 2:3]      # (N,1)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
@@ -443,11 +377,7 @@ def _intersect_tri_raw(orig, d, v0, v1, v2, valid, chunk: int = 512,
     if cull:
         from software_rasterizer_tpu.ops.bvh import slab_test
 
-        m3 = valid[:, None]
-        lo3 = jnp.where(m3, jnp.minimum(jnp.minimum(v0, v1), v2), BIG)
-        hi3 = jnp.where(m3, jnp.maximum(jnp.maximum(v0, v1), v2), -BIG)
-        chunk_lo = lo3.reshape(n_chunks, chunk, 3).min(1)   # (nc,3)
-        chunk_hi = hi3.reshape(n_chunks, chunk, 3).max(1)
+        chunk_lo, chunk_hi = chunk_bounds(v0, v1, v2, valid, chunk)
 
     def compute(carry, s):
         bt, bi = carry
@@ -459,11 +389,10 @@ def _intersect_tri_raw(orig, d, v0, v1, v2, valid, chunk: int = 512,
             jax.lax.dynamic_slice(valid, (s,), (chunk,)),
         )
         # two single-op reduces (min t, then min lane among the equal-t
-        # slots) — exact, and far cheaper than one variadic (min, argmin)
-        # reduce, which profiling showed costing 30x the intersection math.
-        # The barrier also pins t to ONE materialization — without it XLA
-        # duplicates the whole 40-op chain into each reduce's fusion
-        # (measured 4.15 vs 4.76 Mpaths/s end to end).
+        # slots) — exact, and cheaper than one variadic (min, argmin)
+        # reduce. The barrier pins t to ONE materialization, so both
+        # reduces read the same values and XLA does not duplicate the
+        # 40-op chain into each reduce's fusion.
         t = jax.lax.optimization_barrier(t)
         ct = jnp.min(t, axis=1)
         lane = jax.lax.broadcasted_iota(jnp.int32, t.shape, 1)
@@ -533,12 +462,11 @@ def intersect_spheres(orig, d, centers, radii, valid, t_min: float = 0.0):
 
 
 def _onehot_rows(idx, table, precision=jax.lax.Precision.HIGHEST):
-    """table[idx] as a one-hot MXU matmul: idx (N,) i32, table (P,K) f32.
+    """table[idx] as a one-hot matmul: idx (N,) i32, table (P,K) f32.
 
-    Profiling showed each per-winner TPU gather of 65K indices costing
-    ~0.6 ms; ~12 of them dominated every bounce. One (N,P)@(P,K) matmul
-    with an exact one-hot operand replaces them all (HIGHEST precision
-    keeps f32 table values, including integer ids, exact)."""
+    One (N,P)@(P,K) product with an exact one-hot operand replaces a
+    gather per column. HIGHEST precision keeps f32 table values,
+    including integer ids, exact (a TF32 product would round them)."""
     p = table.shape[0]
     iota = jax.lax.broadcasted_iota(jnp.int32, (idx.shape[0], p), 1)
     oh = (idx[:, None] == iota).astype(jnp.float32)
@@ -547,42 +475,39 @@ def _onehot_rows(idx, table, precision=jax.lax.Precision.HIGHEST):
 
 
 def _trace_tris(scene: RTScene, orig, d, chunk: int):
-    """Winner search over triangles via the tiered backends; returns
-    (tri_hit (N,) bool, idx (N,) i32, t (N,) f32 — BIG on miss).
+    """Winner search over triangles; returns (tri_hit (N,) bool, idx (N,)
+    i32, t (N,) f32 — BIG on miss).
 
-    The returned t is the BACKEND's winner t (the mm kernels' bilinear
-    matmul rounding / the XLA chunk formula), NOT the exact _mt_uv
+    The returned t is the sweep's winner t, NOT the exact _mt_uv
     recompute — callers needing oracle-exact t (nearest_hit,
     nearest_emit_hit) recompute it for the winner; classify_hit uses it
     only to pick triangle-vs-sphere winners."""
-    f_pad = scene.v0.shape[0]
-    backend = _trace_backend(f_pad)
-    interp = jax.default_backend() != "tpu"
-    if backend == "vpu":
-        return trace_nearest_vpu(
-            scene.tri_table, scene.n_tri, orig, d, block=2048,
-            interpret=interp,
-        )
-    if backend == "mm2":
-        # fused-cull variant: identical winner selection (interpret-mode
-        # bit-equality + on-chip winner check, tools/mm2c_ab.py), no
-        # separate prepass dispatch / mask / list build per trace call
-        return trace_nearest_mm2c(
-            scene.mt_coef, scene.chunk_lo, scene.chunk_hi, orig, d,
-            chunk=MM2_CHUNK, block=MM2_BLOCK, interpret=interp,
-        )
-    if backend == "mm2s":
-        return trace_nearest_mm2_stream(
-            scene.mt_coef, scene.chunk_lo, scene.chunk_hi, orig, d,
-            chunk=_cull_granule(f_pad), block=2048, interpret=interp,
-        )
-    if backend == "mm":
-        return trace_nearest_mm(
-            scene.mt_coef, orig, d, chunk=min(512, f_pad),
-            block=2048, interpret=interp,
-        )
+    if _trace_backend(scene.v0.shape[0]) == "kernel":
+        return trace_nearest(scene.tri_edges, scene.chunk_lo, scene.chunk_hi,
+                             orig, d)
     return _intersect_tri_raw(
         orig, d, scene.v0, scene.v1, scene.v2, scene.tri_valid, chunk
+    )
+
+
+def map_ray_blocks(fn, orig, d, block: int):
+    """fn(orig, d) -> pytree of (N, ...) arrays, applied to `block`-lane
+    slices under `lax.map`. The XLA sweep materializes (rays x chunk)
+    planes, so an unblocked 1M-lane call would hold multi-GB
+    intermediates; the trace kernel holds no such plane and takes the
+    whole ray set in one call."""
+    n = orig.shape[0]
+    pad = (-n) % block
+    if pad:
+        orig = jnp.pad(orig, ((0, pad), (0, 0)))
+        d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
+    nb = (n + pad) // block
+    out = jax.lax.map(
+        lambda od: fn(od[0], od[1]),
+        (orig.reshape(nb, block, 3), d.reshape(nb, block, 3)),
+    )
+    return jax.tree_util.tree_map(
+        lambda a: a.reshape((nb * block,) + a.shape[2:])[:n], out
     )
 
 
@@ -604,24 +529,13 @@ def nearest_emit_hit(scene: RTScene, orig, d, chunk: int = 512,
     The exact winner t is still recomputed (_mt_uv) so the t^2-vs-dist^2
     shadow acceptance matches the scalar oracle bit-for-bit.
 
-    On the XLA backend large ray sets are mapped over `block`-lane
-    blocks: the brute sweep materializes (rays x chunk) planes, so an
-    unblocked 1M-lane call would hold multi-GB intermediates (the Pallas
-    backends block internally and take the full wavefront)."""
+    On the XLA sweep large ray sets are mapped over `block`-lane blocks
+    (`map_ray_blocks`)."""
     f_pad = scene.v0.shape[0]
-    n = orig.shape[0]
-    if _trace_backend(f_pad) == "xla" and n > block:
-        pad = (-n) % block
-        if pad:
-            orig = jnp.pad(orig, ((0, pad), (0, 0)))
-            d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-        nb = (n + pad) // block
-        hits = jax.lax.map(
-            lambda od: nearest_emit_hit(scene, od[0], od[1], chunk, block),
-            (orig.reshape(nb, block, 3), d.reshape(nb, block, 3)),
-        )
-        return jax.tree_util.tree_map(
-            lambda a: a.reshape((nb * block,) + a.shape[2:])[:n], hits
+    if _trace_backend(f_pad) == "xla" and orig.shape[0] > block:
+        return map_ray_blocks(
+            lambda o, dd: nearest_emit_hit(scene, o, dd, chunk, block),
+            orig, d, block,
         )
     tri_hit, ti, _ = _trace_tris(scene, orig, d, chunk)
     tidx = jnp.maximum(ti, 0)
@@ -643,9 +557,7 @@ def nearest_emit_hit(scene: RTScene, orig, d, chunk: int = 512,
     if n_sph <= 1024:
         # prim_shadow's sphere rows carry exactly
         # where(sph_valid, mat_emit[sph_mat], 0) at cols 9:12 — the
-        # small-table one-hot join replaces a 3-gather chain that cost
-        # ~5 ms/frame at wavefront widths (gathers are ~9 ns/lane
-        # regardless of table size; the one-hot matmul is ~free)
+        # small-table one-hot join replaces a 3-gather chain
         s_emit = _onehot_rows(sidx, scene.prim_shadow[f_pad:, 9:12])
     else:
         s_emit = jnp.where(
@@ -657,20 +569,13 @@ def nearest_emit_hit(scene: RTScene, orig, d, chunk: int = 512,
 
 
 def nearest_hit(scene: RTScene, orig, d, chunk: int = 512,
-                sphere_t_min: float = 0.0, lite: bool = False,
-                defer_color: bool = False) -> Hit:
+                sphere_t_min: float = 0.0, lite: bool = False) -> Hit:
     """Scene::traceScene (Scene.cpp:349-396): nearest over all primitives,
     then surface properties of the winner (barycentric normal/uv + diffuse
     color for triangles, analytic normal + zero color for spheres).
 
     `lite=True` skips the texture-fetch color path — shadow/visibility
     rays only need (hit, t, coords, normal, emit).
-
-    `defer_color=True` keeps the full surface properties but skips ONLY
-    the texture-atlas gather (color=Kd), returning the winner's (tex,
-    tuv) so the caller can fetch texel colors later at a COMPACTED width
-    (a 1M-lane atlas gather costs ~7.5 ms on v5e regardless of how few
-    lanes need it; ops/whitted fetches at diffuse-live blocks only).
 
     Winner attributes are assembled with ONE one-hot matmul over the
     packed `prim_attr` table when the primitive count is small enough
@@ -689,8 +594,7 @@ def nearest_hit(scene: RTScene, orig, d, chunk: int = 512,
         # ONE full-row gather serves BOTH the exact-t recompute (cols
         # 0:9 are v0|v1|v2 for triangle rows) and the winner attribute
         # join below — sphere winners override via a small one-hot, so
-        # the separate 9-col gather this replaces (~5 ms/frame at
-        # wavefront widths) disappears
+        # no separate 9-col gather is needed
         a_tri = scene.prim_attr[:f_pad][tidx]
         v012 = a_tri[:, 0:9]
     else:
@@ -719,9 +623,8 @@ def nearest_hit(scene: RTScene, orig, d, chunk: int = 512,
         s_rows = _onehot_rows(sidx, scene.prim_attr[f_pad:])
         a = jnp.where(use_s[:, None], s_rows, a_tri)
     else:
-        # ONE contiguous row-gather from the packed table — ~10x cheaper
-        # than the dozen per-column gathers it replaces at >1024 prims
-        # (the whitted demo scene pays this epilogue at 1M-lane widths)
+        # ONE contiguous row-gather from the packed table instead of a
+        # dozen per-column gathers at >1024 prims
         a = scene.prim_attr[prim]
     n0, n1, n2 = a[:, 9:12], a[:, 12:15], a[:, 15:18]
     uv0, uv1, uv2 = a[:, 18:20], a[:, 20:22], a[:, 22:24]
@@ -743,20 +646,17 @@ def nearest_hit(scene: RTScene, orig, d, chunk: int = 512,
         tuv_i = jnp.zeros((coords.shape[0], 2))
     else:
         tuv_i = w[:, None] * uv0 + tu[:, None] * uv1 + tv[:, None] * uv2
-        if defer_color:
-            tcol = kd
-        else:
-            packed = (
-                scene.tex_packed
-                if scene.tex_packed.shape == scene.textures.shape[:3]
-                else None
-            )
-            tcol = jnp.where(
-                (tex >= 0)[:, None],
-                fetch_nearest(scene.textures, scene.tex_wh, tex, tuv_i,
-                              packed=packed),
-                kd,
-            )
+        packed = (
+            scene.tex_packed
+            if scene.tex_packed.shape == scene.textures.shape[:3]
+            else None
+        )
+        tcol = jnp.where(
+            (tex >= 0)[:, None],
+            fetch_nearest(scene.textures, scene.tex_wh, tex, tuv_i,
+                          packed=packed),
+            kd,
+        )
 
     # sphere surface properties (Sphere.cpp:148-154): normal only,
     # Properties.color stays (0,0,0) — faithful quirk (Object.hpp:36-40)
@@ -789,15 +689,14 @@ class LiteHit(NamedTuple):
 
     classify_hit's output: enough to build the integrator's branch masks
     (miss / diffuse / specular) and to compact lanes; the full surface-
-    attribute join (`surface_attrs`) then runs at the COMPACTED widths.
-    This is what lets ops/whitted skip the ~22 ms full-width epilogue
-    the round-3 frame paid per depth (tools/whitted_slopes.py)."""
+    attribute join (`surface_attrs`) then runs at the COMPACTED widths,
+    so ops/whitted never pays the full-width epilogue per depth."""
 
     hit: jnp.ndarray       # (N,) bool
     use_s: jnp.ndarray     # (N,) bool — winner is a sphere
     tri: jnp.ndarray       # (N,) i32 triangle winner (clamped >= 0)
     sph: jnp.ndarray       # (N,) i32 sphere winner (clamped >= 0)
-    t_tri: jnp.ndarray     # (N,) f32 backend winner t (BIG on miss)
+    t_tri: jnp.ndarray     # (N,) f32 sweep winner t (BIG on miss)
     st: jnp.ndarray        # (N,) f32 exact sphere t (BIG on miss)
     mat_type: jnp.ndarray  # (N,) i32 winner MaterialType
 
@@ -806,30 +705,21 @@ def classify_hit(scene: RTScene, orig, d, chunk: int = 512,
                  block: int = 8192) -> LiteHit:
     """Nearest-winner search + material class WITHOUT surface attributes.
 
-    The triangle-vs-sphere pick compares the trace BACKEND's triangle t
-    (mm kernels: bilinear-matmul rounding; XLA: the chunk formula)
-    against the exact sphere t — where nearest_hit compares the exact
-    _mt_uv recompute. A tri and a sphere surface coinciding within the
-    backend t's ~1e-7 relative rounding could therefore pick the other
+    The triangle-vs-sphere pick compares the sweep's triangle t (the
+    chunk formula) against the exact sphere t — where nearest_hit
+    compares the exact _mt_uv recompute. A tri and a sphere surface
+    coinciding within the sweep t's ~1e-7 relative rounding could
+    therefore pick the other
     primitive; integrator-visible VALUES stay exact (surface_attrs
     recomputes the winner's t/u/v with the oracle formulas).
 
-    On the XLA backend large ray sets are mapped over `block`-lane
-    blocks (the brute sweep materializes (rays x chunk) planes)."""
+    On the XLA sweep large ray sets are mapped over `block`-lane blocks
+    (`map_ray_blocks`)."""
     f_pad = scene.v0.shape[0]
-    n = orig.shape[0]
-    if _trace_backend(f_pad) == "xla" and n > block:
-        pad = (-n) % block
-        if pad:
-            orig = jnp.pad(orig, ((0, pad), (0, 0)))
-            d = jnp.pad(d, ((0, pad), (0, 0)), constant_values=1.0)
-        nb = (n + pad) // block
-        out = jax.lax.map(
-            lambda od: classify_hit(scene, od[0], od[1], chunk, block),
-            (orig.reshape(nb, block, 3), d.reshape(nb, block, 3)),
-        )
-        return jax.tree_util.tree_map(
-            lambda a: a.reshape((nb * block,) + a.shape[2:])[:n], out
+    if _trace_backend(f_pad) == "xla" and orig.shape[0] > block:
+        return map_ray_blocks(
+            lambda o, dd: classify_hit(scene, o, dd, chunk, block),
+            orig, d, block,
         )
     tri_hit, ti, tk = _trace_tris(scene, orig, d, chunk)
     tt = jnp.where(tri_hit, tk, BIG)
@@ -847,14 +737,14 @@ def classify_hit(scene: RTScene, orig, d, chunk: int = 512,
                    t_tri=tt, st=st, mat_type=mat_type)
 
 
-def surface_attrs(scene: RTScene, orig, d, lh: LiteHit, lite: bool = False,
-                  defer_color: bool = False) -> Hit:
+def surface_attrs(scene: RTScene, orig, d, lh: LiteHit,
+                  lite: bool = False) -> Hit:
     """The surface-property epilogue of `nearest_hit` for ALREADY
     CLASSIFIED winners (same formulas: exact _mt_uv winner recompute,
     barycentric interpolation, texture/Kd join) — so integrators can
     COMPACT lanes between the winner search and the attribute join.
     Per-lane outputs are identical to nearest_hit's wherever the
-    classify pick agrees (everywhere but backend-t knife-edges)."""
+    classify pick agrees (everywhere but sweep-t knife-edges)."""
     f_pad = scene.v0.shape[0]
     use_s = lh.use_s
     prim = jnp.where(use_s, f_pad + lh.sph, lh.tri)
@@ -888,20 +778,17 @@ def surface_attrs(scene: RTScene, orig, d, lh: LiteHit, lite: bool = False,
         tuv_i = jnp.zeros((coords.shape[0], 2))
     else:
         tuv_i = w[:, None] * uv0 + tu[:, None] * uv1 + tv[:, None] * uv2
-        if defer_color:
-            tcol = kd
-        else:
-            packed = (
-                scene.tex_packed
-                if scene.tex_packed.shape == scene.textures.shape[:3]
-                else None
-            )
-            tcol = jnp.where(
-                (tex >= 0)[:, None],
-                fetch_nearest(scene.textures, scene.tex_wh, tex, tuv_i,
-                              packed=packed),
-                kd,
-            )
+        packed = (
+            scene.tex_packed
+            if scene.tex_packed.shape == scene.textures.shape[:3]
+            else None
+        )
+        tcol = jnp.where(
+            (tex >= 0)[:, None],
+            fetch_nearest(scene.textures, scene.tex_wh, tex, tuv_i,
+                          packed=packed),
+            kd,
+        )
 
     sn = coords - sph_center
     sn = sn / jnp.maximum(jnp.linalg.norm(sn, axis=-1, keepdims=True), 1e-20)

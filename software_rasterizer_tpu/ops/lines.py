@@ -1,7 +1,7 @@
 """Wireframe / line rasterization (reference: Bresenham drawLine,
 Render.cpp:112-186; rasterizeWireframe edge colors, Rasterizer.cpp:4-9).
 
-TPU-native formulation: instead of the sequential Bresenham walk, each
+Array formulation: instead of the sequential Bresenham walk, each
 edge is sampled at S = max(H, W) parametric points and scattered — every
 pixel Bresenham would touch is hit (sampling density >= 1 px per step),
 which reproduces the same stroked lines without a data-dependent loop.

@@ -174,7 +174,7 @@ def sample_light_area(scene, key, n: int):
     descend (BVHAcceleration.cpp:200-232) — the composition selects each
     emissive primitive with probability area/total_area; a prefix-sum +
     searchsorted over the flat emissive-primitive table realizes the
-    identical distribution without divergent descent (TPU-native form;
+    identical distribution without divergent descent (array form;
     see ops/bvh.bvh_sample_area for the literal descend, tested
     equivalent).
 

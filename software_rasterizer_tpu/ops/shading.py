@@ -160,7 +160,7 @@ def shade_fragments(
     """Dispatch over the 5 shader types per fragment.
 
     shader_type: (...,) i32. Evaluates each shader branch in a
-    masked/vectorized way and selects — the TPU analog of the reference's
+    masked/vectorized way and selects — the array analog of the reference's
     per-shader function-pointer dispatch (Shader.cpp:94-108).
 
     `active_types`: static tuple of ShaderType values present in the

@@ -12,8 +12,7 @@ import jax.numpy as jnp
 
 def _small_table_rows(idx, table):
     """table[idx] for a SMALL table via a one-hot contraction — a fused
-    select chain instead of a per-lane gather (profiling: a 1M-lane
-    gather from a 2-row table cost 11 ms on v5e; this costs ~0.1 ms)."""
+    select chain instead of a per-lane gather."""
     k = table.shape[0]
     iota = jax.lax.broadcasted_iota(jnp.int32, idx.shape + (k,), idx.ndim)
     oh = (idx[..., None] == iota).astype(jnp.float32)
@@ -39,11 +38,9 @@ def fetch_nearest(atlas, tex_wh, tex_id, uv, packed=None):
     tex_id: (...,) i32 texture index (-1 = no texture -> black)
     uv:     (...,2) f32
     packed: optional (K,Hm,Wm) i32 from `pack_atlas` — when given, the
-            fetch is ONE flat 1-D i32 gather + VPU unpack instead of a
-            3-byte-row gather (the u8[N,3] row layout pads each row into
-            (4,128) tiles; the 1-D word gather measured ~11% cheaper at
-            1M lanes on v5e and keeps the output in plain lane layout).
-            Bit-identical texel values (u8 -> f32/255 after unpack).
+            fetch is ONE flat 1-D i32 gather + an integer unpack instead
+            of a 3-byte-row gather. Bit-identical texel values (u8 ->
+            f32/255 after unpack).
 
     Returns (...,3) f32. Reproduces TextureLoader::getTextureColor:
     clamp uv to [0,1], x=int(u*W), y=int(v*H), out-of-range -> black.

@@ -4,14 +4,15 @@ Axes (SURVEY.md 2.9 / 7.1 "Distribution"):
 
   * ``spp``  — sample-parallelism: each slice of devices computes a
     disjoint range of per-pixel sample indices; partial sum-images merge
-    with one `psum` over ICI (the renderer's data-parallel axis).
+    with one `psum` (the renderer's data-parallel axis).
   * ``tile`` — screen-space parallelism: the framebuffer's pixel lanes
     are sharded; a pure map with no communication until the final
     gather (the renderer's spatial/context-parallel axis).
 
-On a multi-host pod, lay ``spp`` over the slower axis so the single
-psum rides ICI within hosts first (jax orders mesh axes
-major-to-minor over the device list).
+On one host every card reaches every other at the same rate, so the
+mesh shape follows the algorithm alone. Across hosts, lay ``spp`` over
+the slower (inter-host) axis so the single psum crosses it once (jax
+orders mesh axes major-to-minor over the device list).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Multi-host runtime (SURVEY.md 5.8: the distributed layer the
 reference entirely lacks).
 
-On a TPU pod slice every host runs the same program; `initialize()`
-wires `jax.distributed`, after which `jax.devices()` spans the slice and
+On a multi-host cluster every host runs the same program; `initialize()`
+wires `jax.distributed`, after which `jax.devices()` spans all hosts and
 the ("spp", "tile") RenderMesh in parallel/mesh.py shards globally —
-`sharded_path_render`'s psum then rides ICI across all chips. Host-local
+`sharded_path_render`'s psum then spans every device. Host-local
 framebuffer shards are assembled with `gather_image`.
 
 Single-host (or single-chip) processes no-op cleanly, so the same entry
@@ -23,9 +23,8 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> bool:
     """Initialize jax.distributed from args or the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
-    the cloud-TPU metadata when available). Returns True when a
-    multi-process runtime was started."""
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Returns True when a multi-process runtime was started."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(

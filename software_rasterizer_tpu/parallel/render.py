@@ -1,5 +1,5 @@
 """Sharded render drivers: `shard_map` over a ("spp", "tile") RenderMesh
-(the TPU-native replacement for the reference's single-node TBB tiling,
+(the multi-device replacement for the reference's single-node TBB tiling,
 SURVEY.md 2.9 / 5.8).
 
 Design:
@@ -9,7 +9,8 @@ Design:
     folds into the tile axis);
   * path tracing additionally splits the spp range across the spp axis:
     each device accumulates a partial sum-image keyed by ABSOLUTE sample
-    and block indices, then one `psum` over ICI merges the shards —
+    and block indices, then one `psum` over the device interconnect
+    merges the shards —
     bit-identical per-sample radiance vs. the single-device render (the
     only fp difference is the final sum's association order);
   * outputs return sharded along lanes (tile axis), so a subsequent
@@ -40,7 +41,7 @@ def _replicated_specs(tree):
     jax.jit,
     static_argnames=(
         "rmesh", "width", "height", "spp", "p_rr", "max_bounces", "block",
-        "chunk", "fused",
+        "chunk",
     ),
 )
 def sharded_path_render(
@@ -55,25 +56,17 @@ def sharded_path_render(
     max_bounces: int = 16,
     block: int = 8192,
     chunk: int = 512,
-    fused=None,
 ):
     """Path-trace with lanes sharded over `tile` and the spp range over
-    `spp`. Returns (H,W,3) mean radiance.
-
-    When the fused dispatch applies (TPU + small untextured scene; force
-    with `fused=True` for interpret-mode tests), each device runs the
-    persistent-wavefront camera kernel on its OWN pixel range
-    (lane_offset) and spp range (start_sample) — per-sample RNG streams
-    are keyed by absolute (pixel, sample), so any mesh shape reproduces
-    the monolithic fused render's per-sample radiance exactly (the spp
-    psum only changes f32 association).
+    `spp`. Returns (H,W,3) mean radiance. Per-sample RNG streams are
+    keyed by absolute (sample, lane block), so with the same `block` any
+    mesh shape reproduces `ops.path.path_render`'s per-sample radiance;
+    the spp psum only changes f32 association.
 
     Constraints (static-shape sharding): spp % n_spp == 0 and the lane
     count width*height must divide evenly into n_tile * block-aligned
     shards (pad the framebuffer or pick block accordingly).
     """
-    from software_rasterizer_tpu.ops.path import _fused_camera_auto
-
     mesh = rmesh.mesh
     n_spp, n_tile = rmesh.n_spp, rmesh.n_tile
     n = width * height
@@ -85,7 +78,6 @@ def sharded_path_render(
     spp_per = spp // n_spp
     if lanes_per % block and lanes_per > block:
         raise ValueError("block must divide the per-device lane count")
-    use_fused = _fused_camera_auto(scene) if fused is None else fused
 
     orig, d = camera_rays(scene.eye, fovy, width, height)
 
@@ -99,21 +91,6 @@ def sharded_path_render(
     def run(sc, o_loc, d_loc):
         tile_i = jax.lax.axis_index("tile")
         spp_i = jax.lax.axis_index("spp")
-
-        if use_fused:
-            from software_rasterizer_tpu.ops.pallas_path import (
-                fused_path_camera_render,
-            )
-
-            acc = fused_path_camera_render(
-                sc, key, width, height, fovy, spp_per,
-                start_sample=spp_i * spp_per,
-                lane_offset=tile_i * lanes_per,
-                p_rr=p_rr, max_bounces=max_bounces,
-                n_lanes=lanes_per,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return jax.lax.psum(acc.T, "spp")
 
         # absolute block offset of this device's first lane (aligns the
         # per-block RNG keys with the monolithic blocked render)
@@ -342,7 +319,7 @@ def sharded_raster_render(
     there is no sample axis to split). Returns (image (H,W,3), zbuf
     (H,W)), each sharded along rows.
 
-    The TPU-native analog of the reference's TBB row partitioning
+    The multi-device analog of the reference's TBB row partitioning
     (Rasterizer.cpp:217-236): geometry (vertex stage + triangle setup +
     binning inputs) is replicated — tiny for the reference workloads —
     and each device rasterizes absolute rows [dev*sh, (dev+1)*sh) via
@@ -358,9 +335,8 @@ def sharded_raster_render(
     shard_h = height // n_dev
     n_tile = rmesh.n_tile
 
-    # XLA-path tile height must not exceed the shard height, or every
-    # device rasterizes a full 128-row tile and slices its shard out
-    # (measured 3.5x work inflation at 32-row shards on the CPU mesh)
+    # the tile height must not exceed the shard height, or every device
+    # rasterizes a full 128-row tile and slices its shard out
     tile = (min(128, max(8, shard_h)), 128)
 
     def run(g, fr):

@@ -82,45 +82,21 @@ class PathTracing(RenderingPipeline):
 
     def accumulate(self, scene_name: str, n_samples: int):
         """Add `n_samples` fresh per-pixel samples to the running sum.
-
-        The pipeline renders THE camera frame, so when the fused dispatch
-        applies (TPU + small untextured scene) the batch runs through the
-        persistent-wavefront camera kernel with start_sample = samples
-        done — per-sample RNG streams are keyed by absolute (pixel,
-        sample), so progressive/resumed accumulation reproduces the
-        monolithic fused render's per-sample radiance exactly."""
-        from software_rasterizer_tpu.ops.path import _fused_auto
-
+        Sample indices continue from the samples already done, so
+        progressive / resumed accumulation reproduces the monolithic
+        render's per-sample radiance exactly."""
         scene = self.scenes[scene_name]
         rt = self._rt_scene(scene)
         acc, done = self._accum.get(
             scene_name,
             (jax.numpy.zeros((self.width * self.height, 3)), 0),
         )
-        if _fused_auto(rt):
-            from software_rasterizer_tpu.ops.pallas_path import (
-                fused_path_camera_render,
-            )
-
-            # batch over start_sample: the kernel's seed select is
-            # unrolled O(spp per call) (ops/pallas_path), and streams
-            # are keyed by absolute sample index so batching preserves
-            # per-sample radiance exactly
-            for s0 in range(0, n_samples, 64):
-                a = fused_path_camera_render(
-                    rt, make_key(self.seed), self.width, self.height,
-                    scene.fovy, min(64, n_samples - s0),
-                    start_sample=done + s0,
-                    p_rr=scene.rr, max_bounces=self.max_bounces,
-                )
-                acc = acc + a.T
-        else:
-            orig, d = camera_rays(rt.eye, scene.fovy, self.width, self.height)
-            acc = path_render_accumulate(
-                rt, orig, d, make_key(self.seed), acc, done, n_samples,
-                p_rr=scene.rr, max_bounces=self.max_bounces,
-                block=self.block, chunk=self.chunk,
-            )
+        orig, d = camera_rays(rt.eye, scene.fovy, self.width, self.height)
+        acc = path_render_accumulate(
+            rt, orig, d, make_key(self.seed), acc, done, n_samples,
+            p_rr=scene.rr, max_bounces=self.max_bounces,
+            block=self.block, chunk=self.chunk,
+        )
         self._accum[scene_name] = (acc, done + n_samples)
 
     def samples_done(self, scene_name: str) -> int:

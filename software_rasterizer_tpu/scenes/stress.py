@@ -1,14 +1,16 @@
-"""Large-scene stress workload: a midpoint-tessellated Stanford bunny.
+"""Large-scene stress workload: a seeded procedural closed surface.
 
-The reference's scenes top out at ~6K triangles (spot 5856, bunny 4968 —
-`/root/reference/examples/models/`), where a culled brute-force sweep is
-at or above BVH speed on TPU (SURVEY.md 7.1). This scene tessellates the
-bunny by recursive midpoint subdivision (4^k faces per source face) to
-exercise the SCALING path: BVH-leaf-ordered chunk culling
-(ops/intersect._intersect_tri_raw cull_chunks / ops/pallas_trace) and
-the true per-ray BVH traversal (ops/bvh.bvh_nearest_hit) at >= 100K
-triangles, with exactness checked against the unculled sweep
-(tests/test_stress.py) and throughput measured by `BENCH_MODE=stress`.
+The reference's scenes top out at ~6K triangles (spot 5856, bunny 4968).
+This scene stands in for the reference's Stanford bunny, tessellated past
+10^5 triangles, without any asset file: an icosphere subdivided to 5120
+faces (about the bunny's count), then split `levels` more times by
+recursive midpoint subdivision (4^k faces per source face), projected
+onto the unit sphere and displaced radially by a seeded sum of smooth
+waves. It exercises the SCALING path: BVH-leaf-ordered chunk culling
+(ops/intersect._intersect_tri_raw cull_chunks, ops/trace_kernel) and the
+per-ray BVH traversal (ops/bvh.bvh_nearest_hit) at >= 100K triangles,
+with exactness checked against the unculled sweep (tests/test_stress.py)
+and throughput measured by `BENCH_MODE=stress`.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ import numpy as np
 from software_rasterizer_tpu.models.material import Material, MaterialType
 from software_rasterizer_tpu.models.objects import MeshObject
 from software_rasterizer_tpu.models.scene import Scene
-from software_rasterizer_tpu.utils.obj_loader import MeshData, load_obj
+from software_rasterizer_tpu.utils.obj_loader import MeshData
 
-BUNNY_OBJ = "/root/reference/examples/models/bunny/bunny.obj"
+BASE_LEVELS = 4   # icosahedron (20 faces) split 4 times: 5120 faces
 
 
 def subdivide_mesh(data: MeshData, levels: int = 1) -> MeshData:
@@ -78,24 +80,73 @@ def subdivide_mesh(data: MeshData, levels: int = 1) -> MeshData:
     )
 
 
-def build_stress_scene(levels: int = 3) -> Scene:
-    """Tessellated bunny (4968 * 4^levels faces; levels=3 -> 317,952)
-    lit by an emissive ceiling quad, framed like the README bunny
-    walkthrough (eye (0,0,-3), bunny scaled 12x — README.md:288-375)."""
+def _icosahedron():
+    p = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.array([
+        [-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0],
+        [0, -1, p], [0, 1, p], [0, -1, -p], [0, 1, -p],
+        [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1],
+    ], np.float32)
+    f = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True), f
+
+
+def procedural_surface(levels: int = 3, seed: int = 0) -> MeshData:
+    """Closed displaced icosphere with 5120 * 4**levels faces: unit-sphere
+    vertices pushed out by 1 + 0.25 * (a seeded sum of 6 smooth waves),
+    area-weighted vertex normals recomputed from the displaced faces."""
+    v, f = _icosahedron()
+    n_v = v.shape[0]
+    data = MeshData(
+        name="surface", vertices=v, normals=v.copy(),
+        uvs=np.zeros((n_v, 2), np.float32),
+        colors=np.ones((n_v, 3), np.float32), faces=f, material=None,
+        bbox_min=v.min(0), bbox_max=v.max(0), had_normals=True,
+    )
+    data = subdivide_mesh(data, BASE_LEVELS + levels)
+    u = data.vertices / np.linalg.norm(data.vertices, axis=-1, keepdims=True)
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(6, 3)) * 2.5                 # wave vectors
+    phase = rng.uniform(0.0, 2.0 * np.pi, 6)
+    amp = rng.uniform(0.5, 1.0, 6) / 6.0
+    h = (amp * np.sin(u @ k.T + phase)).sum(-1)
+    pos = (u * (1.0 + 0.25 * h)[:, None]).astype(np.float32)
+    f = data.faces
+    fn = np.cross(pos[f[:, 1]] - pos[f[:, 0]], pos[f[:, 2]] - pos[f[:, 0]])
+    nrm = np.zeros_like(pos)
+    for c in range(3):
+        np.add.at(nrm, f[:, c], fn)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    return MeshData(
+        name="surface", vertices=pos, normals=nrm.astype(np.float32),
+        uvs=data.uvs, colors=data.colors, faces=f, material=None,
+        bbox_min=pos.min(0), bbox_max=pos.max(0), had_normals=True,
+    )
+
+
+def build_stress_scene(levels: int = 3, seed: int = 0) -> Scene:
+    """The procedural surface (5120 * 4**levels faces; levels=3 ->
+    327,680) lit by an emissive ceiling quad, framed like the README
+    bunny walkthrough (eye (0,0,-3), object near the origin —
+    README.md:288-375)."""
     scene = Scene(
-        "BunnyStress",
+        "SurfaceStress",
         eye=(0.0, 0.0, -3.0),
         center=(0.0, 0.0, 0.0),
         up=(0.0, 1.0, 0.0),
         background=(0.2355, 0.6735, 0.2400),
     )
-    data = subdivide_mesh(load_obj(BUNNY_OBJ, name="bunny"), levels)
+    data = procedural_surface(levels, seed)
     mat = Material(type=MaterialType.DIFFUSE_AND_GLOSSY, Kd=(0.7, 0.7, 0.7))
-    scene.add_graphic_obj(MeshObject(data, material=mat), "bunny")
+    scene.add_graphic_obj(MeshObject(data, material=mat), "surface")
     scene.set_model_matrix(
-        "bunny", (0.0, 1.0, 0.0), 0.0, (0.0, -1.0, 0.0), (12.0, 12.0, 12.0)
+        "surface", (0.0, 1.0, 0.0), 0.0, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
     )
-
     # emissive quad above (two triangles), so integrators have a light
     lv = np.array([
         [-1.0, 2.0, -1.0], [1.0, 2.0, -1.0],

@@ -20,7 +20,7 @@ from typing import Dict, List, Tuple
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/srtpu_trace"):
+def trace(log_dir: str):
     """Capture a jax.profiler trace around the enclosed block."""
     import jax
 
@@ -29,8 +29,10 @@ def trace(log_dir: str = "/tmp/srtpu_trace"):
 
 
 def summarize_device_time(log_dir: str, top: int = 20) -> List[Tuple[str, float, int]]:
-    """Aggregate device-op wall time from the newest trace under
-    `log_dir`. Returns [(op_name, total_seconds, count)] sorted by time."""
+    """Aggregate device-op time from the newest trace under `log_dir`.
+    Device events are those of processes named "/device:<KIND>:<n>"
+    (one per GPU); host threads are skipped.
+    Returns [(op_name, total_seconds, count)] sorted by time."""
     files = sorted(
         glob.glob(os.path.join(log_dir, "**", "*.trace.json.gz"), recursive=True),
         key=os.path.getmtime,
@@ -47,7 +49,8 @@ def summarize_device_time(log_dir: str, top: int = 20) -> List[Tuple[str, float,
     dur: Dict[str, float] = collections.Counter()
     cnt: Dict[str, int] = collections.Counter()
     for e in events:
-        if e.get("ph") == "X" and "dur" in e and "TPU" in pids.get(e["pid"], ""):
+        if (e.get("ph") == "X" and "dur" in e
+                and pids.get(e["pid"], "").startswith("/device:")):
             dur[e["name"]] += e["dur"]
             cnt[e["name"]] += 1
     rows = [(name, us / 1e6, cnt[name]) for name, us in dur.items()]

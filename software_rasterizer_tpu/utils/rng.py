@@ -1,11 +1,9 @@
 """PRNG key construction.
 
 Integrators consume `jax.random` keys; any impl works. The pipelines
-default to the hardware-accelerated RBG generator — profiling showed
-the (default) threefry2x32 custom-calls costing ~0.5 ms per draw at
-wavefront widths, several times per bounce. RBG uses the TPU's native
-RngBitGenerator. Override with SRT_PRNG_IMPL=threefry2x32 for
-cross-backend bit-identical streams.
+default to the "rbg" generator (XLA's RngBitGenerator), which produced
+the CPU goldens in tests/goldens; PERF.md records its cost against
+"threefry2x32" on the GPU. Override with SRT_PRNG_IMPL=threefry2x32.
 """
 
 from __future__ import annotations
@@ -16,11 +14,7 @@ import os
 def make_key(seed: int):
     import jax
 
-    impl = os.environ.get("SRT_PRNG_IMPL", "rbg")
-    try:
-        return jax.random.key(seed, impl=impl)
-    except Exception:
-        return jax.random.PRNGKey(seed)
+    return jax.random.key(seed, impl=os.environ.get("SRT_PRNG_IMPL", "rbg"))
 
 
 def lane_uniforms(key, rid, salt: int = 0):
@@ -33,7 +27,7 @@ def lane_uniforms(key, rid, salt: int = 0):
     `jax.random.uniform(key, (n_local,))` draws by LOCAL lane position and
     correlates shards). One scalar threefry draw derives a 32-bit seed
     from (key, salt); per-lane values come from a lowbias32-style integer
-    mix on the VPU (effectively free at wavefront widths, unlike a
+    mix (elementwise, cheap at wavefront widths, unlike a
     vmapped fold_in which costs a full threefry pass per draw).
     """
     import jax

@@ -45,14 +45,30 @@ def trace(s, o, d):
     n = w * s["n0"][i] + u[i] * s["n1"][i] + v[i] * s["n2"][i]
     n = n / np.linalg.norm(n)
     mat = s["tri_mat"][i]
+    color = s["mat_kd"][mat]
+    tex = s["tri_tex"][i]
+    if tex >= 0:   # getDiffuseColor: the texel at the interpolated uv
+        uv = w * s["uv0"][i] + u[i] * s["uv1"][i] + v[i] * s["uv2"][i]
+        color = texel(s, tex, uv)
     return {
         "t": t[i],
         "coords": o + d * t[i],
         "normal": n,
-        "color": s["mat_kd"][mat],
+        "color": color,
         "emit": s["mat_emit"][mat],
         "mat": mat,
     }
+
+
+def texel(s, tex, uv):
+    """TextureLoader::getTextureColor: clamp uv to [0,1], x=int(u*W),
+    y=int(v*H), out of range -> black."""
+    w, h = (int(x) for x in s["tex_wh"][tex])
+    x = int(np.clip(uv[0], 0.0, 1.0) * w)
+    y = int(np.clip(uv[1], 0.0, 1.0) * h)
+    if x >= w or y >= h:
+        return np.zeros(3)
+    return s["textures"][tex, y, x].astype(np.float64) / 255.0
 
 
 def sample_light(s, p, rng):

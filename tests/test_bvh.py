@@ -145,8 +145,8 @@ def test_rt_geometry_bvh_order_preserves_render():
 def test_bvh_nearest_hit_exact_vs_bruteforce():
     """The true nearest-hit traversal (primitive intersected at every
     visited leaf) must agree with the brute-force sweep exactly —
-    including at scale (tessellated sheet, ~20K tris here; the TPU
-    stress bench runs >=100K)."""
+    including at scale (tessellated sheet, ~20K tris here; the stress
+    bench runs >=100K)."""
     rng = np.random.RandomState(11)
     g = 100  # (g*g*2) triangles over a bumpy sheet
     xs, ys = np.meshgrid(np.linspace(-5, 5, g + 1), np.linspace(-5, 5, g + 1))

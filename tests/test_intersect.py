@@ -163,194 +163,3 @@ def test_whitted_tiny_scene():
     assert is_bg.any() and not is_bg.all()
     lit = img[~is_bg]
     assert lit.max() > 0.01, "diffuse floor must receive light"
-
-
-def test_mm_trace_kernel_matches_xla_sweep():
-    """The MXU bilinear Moller-Trumbore kernel (ops/pallas_trace) must
-    agree with the XLA broadcast-FMA sweep on hits AND winner identity
-    (interpret mode on CPU; f32 exact)."""
-    from software_rasterizer_tpu.ops.intersect import _intersect_tri_raw
-    from software_rasterizer_tpu.ops.pallas_trace import (
-        mt_tri_coef,
-        trace_nearest_mm,
-    )
-
-    rng = np.random.RandomState(7)
-    f = 96
-    v0 = rng.randn(f, 3).astype(np.float32)
-    v1 = v0 + rng.randn(f, 3).astype(np.float32) * 0.7
-    v2 = v0 + rng.randn(f, 3).astype(np.float32) * 0.7
-    valid = np.ones(f, bool)
-    valid[80:] = False
-    n = 700
-    orig = rng.randn(n, 3).astype(np.float32) * 2
-    d = rng.randn(n, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-
-    coef = mt_tri_coef(
-        jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2), jnp.asarray(valid)
-    )
-    h1, i1, _ = trace_nearest_mm(coef, jnp.asarray(orig), jnp.asarray(d),
-                              chunk=32, block=256, interpret=True)
-    h2, i2, _ = _intersect_tri_raw(
-        jnp.asarray(orig), jnp.asarray(d), jnp.asarray(v0), jnp.asarray(v1),
-        jnp.asarray(v2), jnp.asarray(valid), chunk=32,
-    )
-    h1, i1, h2, i2 = (np.asarray(a) for a in (h1, i1, h2, i2))
-    assert h1.sum() > 50  # scene actually hit
-    # the bilinear expansion reassociates f32 math, so knife-edge
-    # accept/reject decisions may flip on a tiny population
-    assert (h1 != h2).mean() < 0.01
-    both = h1 & h2
-    assert (i1[both] != i2[both]).mean() < 0.01
-
-
-def test_nearest_hit_mm_path_matches_default(cornell_rt_scene=None):
-    """nearest_hit with SRT_MM_TRACE=1 (interpret on CPU) must reproduce
-    the default XLA path on the Cornell scene."""
-    import os
-
-    from software_rasterizer_tpu.ops.camera import camera_rays
-    from software_rasterizer_tpu.ops.intersect import nearest_hit, prepare_rt_scene
-    from software_rasterizer_tpu.scenes import build_cornell_scene
-
-    scene = build_cornell_scene()
-    scene.set_ndc_matrix(24, 24)
-    rt = prepare_rt_scene(scene.rt_geometry(), scene.rt_frame())
-    rt = jax.tree_util.tree_map(jnp.asarray, rt)
-    orig, d = camera_rays(rt.eye, scene.fovy, 24, 24)
-
-    base = nearest_hit(rt, orig, d, 128)
-    os.environ["SRT_MM_TRACE"] = "1"
-    try:
-        mm = nearest_hit(rt, orig, d, 128)
-    finally:
-        os.environ["SRT_MM_TRACE"] = "auto"
-    bh, mh = np.asarray(base.hit), np.asarray(mm.hit)
-    assert (bh != mh).mean() < 0.01  # borderline-ray flips only
-    both = bh & mh
-    same = np.asarray(base.prim)[both] == np.asarray(mm.prim)[both]
-    # winner flips happen only for SEAM rays (hits exactly on a shared
-    # edge/diagonal, u or v == 0 or u+v == 1): same t, different but
-    # equally-valid primitive
-    assert (~same).mean() < 0.03
-    bad = np.where(both)[0][~same]
-    np.testing.assert_allclose(
-        np.asarray(base.t)[bad], np.asarray(mm.t)[bad], rtol=1e-4
-    )
-    sel = np.where(both)[0][same]
-    np.testing.assert_allclose(
-        np.asarray(base.t)[sel], np.asarray(mm.t)[sel], rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(base.normal)[sel], np.asarray(mm.normal)[sel], atol=1e-5
-    )
-
-
-def test_trace_nearest_mm2_matches_brute(monkeypatch):
-    """The chunk-culled MXU kernel (interpret mode on CPU) must agree
-    exactly with the XLA brute sweep: the slab cull is conservative."""
-    import numpy as np
-
-    from software_rasterizer_tpu.ops.pallas_trace import (
-        chunk_bounds, mt_tri_coef, trace_nearest_mm2,
-    )
-
-    rng = np.random.RandomState(3)
-    F, N = 300, 512
-    v0 = jnp.asarray(rng.rand(F, 3) * 2 - 1, jnp.float32)
-    v1 = v0 + jnp.asarray(rng.rand(F, 3) * 0.3, jnp.float32)
-    v2 = v0 + jnp.asarray(rng.rand(F, 3) * 0.3, jnp.float32)
-    valid = jnp.asarray(rng.rand(F) > 0.1)
-    orig = jnp.asarray(rng.rand(N, 3) * 0.2 - 2.0, jnp.float32)
-    d = jnp.asarray(rng.rand(N, 3) + 0.2, jnp.float32)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    coef = mt_tri_coef(v0, v1, v2, valid)
-    lo, hi = chunk_bounds(v0, v1, v2, valid, 64)
-    hit2, i2, _ = trace_nearest_mm2(
-        coef, lo, hi, orig, d, chunk=64, block=256, interpret=True
-    )
-    hit1, i1, _, _ = intersect_triangles(orig, d, v0, v1, v2, valid, chunk=64)
-    hit1 = jnp.asarray(i1) >= 0
-    assert (np.asarray(hit1) == np.asarray(hit2)).all()
-    assert (np.asarray(i1) == np.asarray(i2)).all()
-
-
-def test_trace_nearest_mm2_many_chunks():
-    """Exercise the cull-mask plane ABOVE 128 chunks (bit c lives at
-    (c // 128, c % 128) of the (8,128) mask): 160 chunks of 16 triangles
-    must still match the brute sweep exactly in interpret mode."""
-    import numpy as np
-
-    from software_rasterizer_tpu.ops.pallas_trace import (
-        chunk_bounds, mt_tri_coef, trace_nearest_mm2,
-    )
-
-    rng = np.random.RandomState(11)
-    F, N = 16 * 160, 256  # 160 chunks at chunk=16
-    # spread clusters along x so chunk AABBs are tight and culling real
-    centers = rng.rand(F, 1, 3) * np.array([40.0, 2.0, 2.0]) - 1.0
-    tri = centers + rng.rand(F, 3, 3) * 0.4
-    v0 = jnp.asarray(tri[:, 0], jnp.float32)
-    v1 = jnp.asarray(tri[:, 1], jnp.float32)
-    v2 = jnp.asarray(tri[:, 2], jnp.float32)
-    valid = jnp.asarray(rng.rand(F) > 0.05)
-    orig = jnp.asarray(
-        rng.rand(N, 3) * np.array([40.0, 1.0, 1.0]) - np.array([0.0, 0.0, 4.0]),
-        jnp.float32,
-    )
-    d = jnp.asarray(rng.rand(N, 3) * 0.2 + np.array([0.0, 0.0, 1.0]), jnp.float32)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    coef = mt_tri_coef(v0, v1, v2, valid)
-    lo, hi = chunk_bounds(v0, v1, v2, valid, 16)
-    assert lo.shape[0] == 160
-    hit2, i2, _ = trace_nearest_mm2(
-        coef, lo, hi, orig, d, chunk=16, block=256, interpret=True
-    )
-    hit1, i1, _, _ = intersect_triangles(orig, d, v0, v1, v2, valid, chunk=64)
-    hit1 = jnp.asarray(i1) >= 0
-    assert (np.asarray(hit1) == np.asarray(hit2)).all()
-    assert (np.asarray(i1) == np.asarray(i2)).all()
-    assert int(np.asarray(hit1).sum()) > 0
-
-
-def test_trace_nearest_mm2_stream_matches_brute():
-    """The HBM-streaming kernel (double-buffered per-chunk coefficient
-    DMA) must agree exactly with the XLA brute sweep, including above
-    1024 chunks (the old cull-mask cap: bit c at (c//128, c%128) of the
-    now-size-derived mask plane). 1100 chunks of 16 tris, interpret
-    mode."""
-    import numpy as np
-
-    from software_rasterizer_tpu.ops.pallas_trace import (
-        chunk_bounds, mt_tri_coef, trace_nearest_mm2_stream,
-    )
-
-    rng = np.random.RandomState(7)
-    F, N = 16 * 1100, 256
-    centers = rng.rand(F, 1, 3) * np.array([60.0, 2.0, 2.0]) - 1.0
-    tri = centers + rng.rand(F, 3, 3) * 0.4
-    v0 = jnp.asarray(tri[:, 0], jnp.float32)
-    v1 = jnp.asarray(tri[:, 1], jnp.float32)
-    v2 = jnp.asarray(tri[:, 2], jnp.float32)
-    valid = jnp.asarray(rng.rand(F) > 0.05)
-    orig = jnp.asarray(
-        rng.rand(N, 3) * np.array([60.0, 1.0, 1.0]) - np.array([0.0, 0.0, 4.0]),
-        jnp.float32,
-    )
-    d = jnp.asarray(rng.rand(N, 3) * 0.2 + np.array([0.0, 0.0, 1.0]), jnp.float32)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    coef = mt_tri_coef(v0, v1, v2, valid)
-    lo, hi = chunk_bounds(v0, v1, v2, valid, 16)
-    assert lo.shape[0] == 1100
-    hit2, i2, _ = trace_nearest_mm2_stream(
-        coef, lo, hi, orig, d, chunk=16, block=256, interpret=True
-    )
-    hit1, i1, _, _ = intersect_triangles(orig, d, v0, v1, v2, valid, chunk=64)
-    hit1 = jnp.asarray(i1) >= 0
-    assert (np.asarray(hit1) == np.asarray(hit2)).all()
-    assert (np.asarray(i1) == np.asarray(i2)).all()
-    assert int(np.asarray(hit1).sum()) > 0

@@ -57,6 +57,23 @@ def test_path_sharded_matches_single_device(cornell_rt):
     np.testing.assert_allclose(np.array(many), np.array(mono), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("n_spp, n_tile", [(1, 8), (2, 4), (4, 2), (8, 1)])
+def test_path_sharded_mesh_shapes_match_monolithic(cornell_rt, n_spp,
+                                                   n_tile):
+    """Every ("spp", "tile") mesh shape reproduces the monolithic render:
+    per-sample radiance is keyed by absolute (sample, lane block), so
+    only the spp psum's f32 association differs."""
+    scene, rt = cornell_rt
+    key = jax.random.PRNGKey(5)
+    mono = path_render(rt, W, H, scene.fovy, key, spp=8, block=BLOCK,
+                       max_bounces=6)
+    m = make_render_mesh(n_spp=n_spp, n_tile=n_tile)
+    shard = sharded_path_render(rt, m, W, H, scene.fovy, key, spp=8,
+                                block=BLOCK, max_bounces=6)
+    np.testing.assert_allclose(np.array(shard), np.array(mono), rtol=3e-5,
+                               atol=1e-5)
+
+
 def test_path_sharded_tile_counts(cornell_rt):
     """Different tile-axis widths agree when lane blocks stay aligned.
 
@@ -206,26 +223,3 @@ def test_raster_sharded_bitexact(models_dir):
     assert (np.asarray(zb) < np.inf).sum() > 200
     np.testing.assert_array_equal(np.asarray(img_s), np.asarray(img))
     np.testing.assert_array_equal(np.asarray(zb_s), np.asarray(zb))
-
-
-def test_fused_camera_sharded_matches_monolithic():
-    """The persistent-wavefront camera kernel sharded over a
-    ("spp","tile") mesh must reproduce the monolithic fused render:
-    RNG streams are keyed by absolute (pixel, sample), so every
-    per-sample radiance value is identical — the spp psum only changes
-    f32 association (interpret mode on the CPU mesh)."""
-    scene = build_cornell_scene()
-    w = 16
-    scene.set_ndc_matrix(w, w)
-    rt = jax.tree_util.tree_map(
-        jnp.asarray, prepare_rt_scene(scene.rt_geometry(), scene.rt_frame())
-    )
-    key = jax.random.PRNGKey(3)
-    mono = path_render(rt, w, w, scene.fovy, key, spp=4, max_bounces=6,
-                       fused=True)
-    m = make_render_mesh(n_spp=2, n_tile=4)
-    shard = sharded_path_render(rt, m, w, w, scene.fovy, key, spp=4,
-                                max_bounces=6, fused=True)
-    np.testing.assert_allclose(
-        np.array(shard), np.array(mono), rtol=3e-5, atol=1e-5
-    )

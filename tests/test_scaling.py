@@ -94,7 +94,7 @@ def test_sharding_work_efficiency_8dev():
     cm = _cpu_time(mono)
     cs = _cpu_time(lambda: sharded_path_render(
         rt, mesh, w, w, scene.fovy, key, spp=spp,
-        max_bounces=8, block=block, fused=False,
+        max_bounces=8, block=block,
     ).block_until_ready())
     eff = cm / cs
     # >= 0.8: the sharding machinery may add at most 25% total work
